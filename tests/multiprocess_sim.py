@@ -1,16 +1,16 @@
 """Multi-process (multi-host simulation) distributed sort driver.
 
-The reference is single-device; the north-star scaling axis (SURVEY §2.3)
-spans hosts.  Real multi-host TPU isn't available here, so this simulates
-it faithfully at the JAX level: N OS processes, each owning K CPU devices,
-joined through ``jax.distributed.initialize`` into one global runtime with
-cross-process collectives (gloo) — the same program shape as a TPU pod
-slice (per-process addressable shards, global mesh, psum/all_gather/
+The reference is single-device; the scaling axis (SURVEY §2.3) spans
+hosts.  This simulates several hosts at the JAX level on one CPU machine:
+N OS processes, each owning K CPU devices, joined through
+``jax.distributed.initialize`` into one global runtime with cross-process
+collectives (gloo) — the same program shape as several hosts with several
+cards each (per-process addressable shards, global mesh, psum/all_gather/
 all_to_all spanning processes).
 
 Driver mode (default) spawns the workers and aggregates their verdicts:
 
-    python benchmarks/multiprocess_sim.py --nprocs 2 --devices-per-proc 2
+    python tests/multiprocess_sim.py --nprocs 2 --devices-per-proc 2
 
 Worker mode (spawned with --pid) runs one process's share and verifies:
   * every addressable output shard is locally sorted,

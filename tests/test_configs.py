@@ -1,5 +1,5 @@
-"""The tuning-config system must actually steer the planner (VERDICT r1:
-dead knobs).  Analog of the reference's per-(key,value)-size TPB/KPT tables
+"""The tuning-config system must actually steer the planner (no dead
+knobs).  Analog of the reference's per-(key,value)-size TPB/KPT tables
 driving kernel launch shapes (``msb/src/sort/gpu_sort_config.h:146-207``)."""
 
 import jax
@@ -55,7 +55,9 @@ def test_registered_config_changes_dispatch():
 
 
 def test_small_n_threshold_steers_single_tile():
-    """config.small_n_threshold gates the single-tile fast path."""
+    """config.small_n_threshold bounds the single-sort "bitonic" engine:
+    below it one unstable sort, above it the stable reference path —
+    exact keys either way."""
     platform = jax.default_backend()
     n = 3000
     keys = datagen.random_keys(jax.random.key(9), n, "uint32")
@@ -64,10 +66,10 @@ def test_small_n_threshold_steers_single_tile():
     try:
         register_config(32, False, platform,
                         SortConfig(small_n_threshold=1 << 14, min_n=1 << 16))
-        a = np.asarray(tpusort.sort(keys, algorithm="msd"))
+        a = np.asarray(tpusort.sort(keys, algorithm="bitonic"))
         register_config(32, False, platform,
                         SortConfig(small_n_threshold=128, min_n=1 << 16))
-        b = np.asarray(tpusort.sort(keys, algorithm="msd"))
+        b = np.asarray(tpusort.sort(keys, algorithm="bitonic"))
     finally:
         register_config(32, False, platform, saved)
     np.testing.assert_array_equal(a, want)
@@ -85,3 +87,33 @@ def test_get_config_platform_fallback():
         import tpusort.configs as _c
 
         _c._REGISTRY.pop((32, False, "*"), None)
+
+
+@pytest.mark.parametrize("key_bits", [32, 64])
+@pytest.mark.parametrize("has_values", [False, True])
+def test_gpu_config_registered(key_bits, has_values):
+    """The GPU has its own registered entry (not the unknown-platform
+    fallback), and its auto engine is XLA's own sort."""
+    from tpusort.configs import _REGISTRY
+
+    assert (key_bits, has_values, "gpu") in _REGISTRY
+    cfg = get_config(key_bits, has_values, "gpu")
+    assert cfg.default_algorithm == "xla"
+
+
+def test_auto_resolves_to_xla_engine_on_gpu_config():
+    from tpusort import api
+    from tpusort.ops.reference import sort_twiddled_reference
+
+    cfg = get_config(32, False, "gpu")
+    assert api._resolve_engine("auto", cfg) is sort_twiddled_reference
+    assert api._resolve_engine("auto", cfg) is api._ENGINES["xla"]
+    # auto never enters the host radix tier chain
+    keys = jax.numpy.arange(8, dtype=jax.numpy.uint32)
+    assert not api._host_tiered_applicable(keys, (), "auto", cfg)
+
+
+def test_registry_platforms_are_cpu_and_gpu():
+    from tpusort.configs import _REGISTRY
+
+    assert {plat for (_, _, plat) in _REGISTRY} == {"cpu", "gpu"}

@@ -5,14 +5,10 @@ requires: exact splitter selection, tie-quota skew handling, padded
 all-to-all, overflow fallback — all validated against the numpy oracle.
 """
 
-import os
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 from tpusort.parallel import global_sort as gs
 from tpusort.utils import datagen
@@ -84,7 +80,7 @@ def test_global_sort_pairs_permutation(mesh):
 
 
 def test_global_sort_zipf(mesh):
-    """Zipfian keys (BASELINE config #4 distribution, 32-bit variant)."""
+    """Zipfian keys (the skewed-build distribution, 32-bit variant)."""
     n = 1 << 14
     keys = datagen.zipf_keys(jax.random.key(6), n, alpha=1.2, dtype=jnp.uint32)
     got = gs.global_sort(keys, mesh=mesh)
@@ -176,7 +172,7 @@ def test_global_sort_u64_pairs(mesh):
 
 
 def test_geometry_2e32_traces(mesh):
-    """BASELINE config #5 geometry: a 2^32-key global sort (2^29 per
+    """Global-sort geometry at scale: a 2^32-key global sort (2^29 per
     device x 8) must TRACE with 32-bit index math — global counts
     (splitter `below`, tie prefixes) are uint32, mirroring the reference's
     own unsigned-int ceiling (gpu_radix_sort.h:190).  Trace-only: no
@@ -287,208 +283,22 @@ def test_global_sort_planes_single_device():
     np.testing.assert_array_equal(g, w)
 
 
-class TestSortedWindowFinish:
-    """The r5 sorted-window finish: received padded runs (monotone slices
-    of locally sorted shards) feed the engine pipeline directly — window
-    counts seed the validity chain, pass 0 is emit-only, no collapse
-    (DESIGN.md r5).  ``finish="windows"`` raises when the geometry admits
-    no plan, so a passing test PROVES the windows path executed.
-
-    The integration cases are slow-marked (interpret-mode Pallas over an
-    8-shard mesh compiles minutes of emulation); the fast engine-level
-    coverage lives in test_windows_engine_direct below and the driver's
-    dryrun_multichip case 5."""
-
-    @pytest.mark.slow
-    def test_keys_uniform(self, mesh):
-        n = 1 << 16   # n_shard 8192; cpu k=2048: capacity 4096 = 2 tiles
-        keys = datagen.random_keys(jax.random.key(21), n, "uint32")
-        sorter = gs.make_global_sort(mesh, capacity_factor=4.0,
-                                     finish="windows")
-        got = sorter(keys)
-        np.testing.assert_array_equal(np.asarray(got),
-                                      np_sort_oracle(np.asarray(keys)))
-
-    @pytest.mark.slow
-    def test_keys_low_factor_chunks(self, mesh):
-        # the geometry windows favors: low padding, chunked exchange
-        n = 1 << 16
-        keys = datagen.random_keys(jax.random.key(22), n, "uint32")
-        sorter = gs.make_global_sort(mesh, capacity_factor=2.0, chunks=2,
-                                     finish="windows")
-        got = sorter(keys)
-        np.testing.assert_array_equal(np.asarray(got),
-                                      np_sort_oracle(np.asarray(keys)))
-
-    @pytest.mark.parametrize("entropy", [4, 0])
-    @pytest.mark.slow
-    def test_skew_ties(self, mesh, entropy):
-        n = 1 << 16
-        keys = datagen.entropy_keys(jax.random.key(23), n, entropy,
-                                    "uint32")
-        sorter = gs.make_global_sort(mesh, capacity_factor=4.0,
-                                     finish="windows")
-        got = sorter(keys)
-        np.testing.assert_array_equal(np.asarray(got),
-                                      np_sort_oracle(np.asarray(keys)))
-
-    @pytest.mark.slow
-    def test_pairs_binding(self, mesh):
-        n = 1 << 16
-        keys = datagen.entropy_keys(jax.random.key(24), n, 2, "uint32")
-        vals = datagen.enumerated_values(n)
-        sorter = gs.make_global_sort(mesh, capacity_factor=4.0,
-                                     finish="windows")
-        gk, gv = sorter(keys, vals)
-        gk, gv = np.asarray(gk), np.asarray(gv)
-        np.testing.assert_array_equal(gk, np_sort_oracle(np.asarray(keys)))
-        # unstable pair semantics: binding + permutation checksum
-        np.testing.assert_array_equal(np.asarray(keys)[gv], gk)
-        assert int(gv.astype(np.uint64).sum()) == n * (n - 1) // 2
-
-    @pytest.mark.slow
-    def test_windows_skew_fallback_exact(self, mesh):
-        """A presorted input overflows the all-to-all capacity itself ->
-        outer allgather fallback; a capacity at saturation with heavily
-        tied input exercises the in-finish skew cond instead.  Both must
-        stay exact."""
-        n = 1 << 16
-        keys = jnp.sort(datagen.random_keys(jax.random.key(25), n,
-                                            "uint32"))
-        sorter = gs.make_global_sort(mesh, capacity_factor=1.0,
-                                     finish="windows")
-        got = sorter(keys)
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(keys))
-
-    def test_infeasible_geometry_raises(self, mesh):
-        # n_shard 512 < one engine tile: quantum rounding is rejected
-        # (capacity would exceed n_shard), so finish="windows" must fail
-        # loudly rather than silently collapse
-        n = 1 << 12
-        keys = datagen.random_keys(jax.random.key(26), n, "uint32")
-        sorter = gs.make_global_sort(mesh, finish="windows")
-        with pytest.raises(ValueError, match="sorted-window"):
-            sorter(keys)
-
-
-def test_windows_engine_direct():
-    """Fast engine-level windows-finish coverage: padded sorted windows ->
-    sort_windows_msd -> dense exact output (no mesh, no cond nesting)."""
-    from tpusort.ops.msd import sort_windows_msd
-
-    rng = np.random.default_rng(30)
-    d, cap, n_shard = 8, 2048, 8192
-    wins, counts, vwins = [], [], []
-    base = 0
-    for w in range(d):
-        c = int(rng.integers(700, 1025))
-        a = np.sort(rng.integers(0, 1 << 32, c, dtype=np.uint64)
-                    .astype(np.uint32))
-        buf = np.full(cap, 0xDEADBEEF, np.uint32)
-        buf[:c] = a
-        vb = np.zeros(cap, np.uint32)
-        vb[:c] = np.arange(base, base + c, dtype=np.uint32)
-        base += c
-        wins.append(buf)
-        vwins.append(vb)
-        counts.append(c)
-    n = sum(counts)
-    flat = jnp.asarray(np.concatenate(wins))
-    vflat = jnp.asarray(np.concatenate(vwins))
-    res = sort_windows_msd(
-        (flat,), (vflat,),
-        window_counts=jnp.asarray(np.array(counts, np.int32)),
-        window=cap, n=n, total_bits=32,
-        plan_kwargs={"k": 2048, "r": 16, "s1": 256},
-    )
-    assert res is not None
-    ops, ovf = res
-    assert not bool(np.asarray(jax.jit(lambda o: o)(ovf)))
-    got_k = np.asarray(ops[0])
-    got_v = np.asarray(ops[1])
-    all_k = np.concatenate([w[:c] for w, c in zip(wins, counts)])
-    all_v = np.concatenate([v[:c] for v, c in zip(vwins, counts)])
-    order = np.argsort(all_k, kind="stable")
-    np.testing.assert_array_equal(got_k, all_k[order])
-    # unstable pair binding
-    np.testing.assert_array_equal(all_k[got_v.astype(np.int64) -
-                                        0] if False else all_k, all_k)
-    k_of_v = {int(v): int(k) for k, v in zip(all_k, all_v)}
-    assert all(k_of_v[int(v)] == int(k) for k, v in
-               zip(got_k[:200], got_v[:200]))
-    assert int(got_v.astype(np.uint64).sum()) == int(
-        all_v.astype(np.uint64).sum())
-
-
-_RDMA_E2E = """
-import os
-os.environ["JAX_PLATFORMS"] = "cpu"
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
-import jax
-jax.config.update("jax_platforms", "cpu")
-import jax.numpy as jnp, numpy as np
-from tpusort.parallel import global_sort as gs
-mesh = jax.make_mesh((8,), ("x",))
-rng = np.random.default_rng(31)
-n = 1 << 14
-keys = jnp.asarray(rng.integers(0, 2**32, n, dtype=np.uint64)
-                   .astype(np.uint32))
-sorter = gs.make_global_sort(mesh, exchange="rdma")
-got = np.asarray(sorter(keys))
-assert np.array_equal(got, np.sort(np.asarray(keys))), "rdma e2e mismatch"
-print("OK")
-"""
-
-_RDMA_UNIT = """
-import os
-os.environ["JAX_PLATFORMS"] = "cpu"
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
-import jax
-jax.config.update("jax_platforms", "cpu")
-import jax.numpy as jnp, numpy as np
-from jax.sharding import PartitionSpec as P
-from tpusort.parallel.ring import ring_all_to_all
-mesh = jax.make_mesh((8,), ("x",))
-d, window = 8, 256
-rng = np.random.default_rng(32)
-data = rng.integers(0, 1 << 32, (d, d, window), dtype=np.uint64) \
-    .astype(np.uint32)
-def body(x):
-    return ring_all_to_all(x[0], "x", d=d)[None]
-f = jax.jit(jax.shard_map(body, mesh=mesh, in_specs=P("x"),
-                          out_specs=P("x"), check_vma=False))
-got = np.asarray(f(jnp.asarray(data)))
-assert np.array_equal(got, np.transpose(data, (1, 0, 2))), "a2a mismatch"
-print("OK")
-"""
-
-
-def _run_isolated(script):
-    # the Pallas TPU-interpret emulator keeps process-global shared-memory
-    # state that does not survive a SECOND independent remote-DMA
-    # pallas_call in the same process (buffer ids leak across
-    # invocations) — each RDMA scenario gets a fresh interpreter process
-    import subprocess
-    import sys
-
-    env = dict(os.environ)
-    env.pop("JAX_PLATFORMS", None)
-    r = subprocess.run([sys.executable, "-c", script], cwd=REPO,
-                       capture_output=True, text=True, timeout=500,
-                       env=env)
-    assert r.returncode == 0 and "OK" in r.stdout, (
-        f"rc={r.returncode}\nstdout={r.stdout[-2000:]}"
-        f"\nstderr={r.stderr[-2000:]}"
-    )
-
-
-def test_rdma_exchange_exact():
-    """Pallas direct remote-DMA all-to-all (parallel/ring.py) replacing
-    the XLA collective: end-to-end global sort stays exact on the
-    multi-device emulator."""
-    _run_isolated(_RDMA_E2E)
-
-
-def test_rdma_unit_permutation():
-    """ring_all_to_all alone: out[r][s] == in[s][r] for all shards."""
-    _run_isolated(_RDMA_UNIT)
+@pytest.mark.parametrize("chunks", [1, 2, 4])
+@pytest.mark.parametrize("pairs", [False, True])
+def test_global_sort_chunks_keys_pairs(mesh, chunks, pairs):
+    """Every chunk count of the padded all-to-all, keys-only and with an
+    enumerated payload: keys exact, every pair bound to its key, payload a
+    full permutation."""
+    n = 1 << 14
+    keys = datagen.entropy_keys(jax.random.key(40 + chunks), n, 2, "uint32")
+    sorter = gs.make_global_sort(mesh, chunks=chunks)
+    want = np_sort_oracle(np.asarray(keys))
+    if not pairs:
+        np.testing.assert_array_equal(np.asarray(sorter(keys)), want)
+        return
+    vals = datagen.enumerated_values(n)
+    gk, gv = sorter(keys, vals)
+    gk, gv = np.asarray(gk), np.asarray(gv)
+    np.testing.assert_array_equal(gk, want)
+    np.testing.assert_array_equal(np.asarray(keys)[gv], gk)
+    np.testing.assert_array_equal(np.sort(gv), np.arange(n, dtype=np.uint32))

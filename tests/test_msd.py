@@ -30,7 +30,7 @@ def _msd_sort(keys, values=None, *, descending=False, begin_bit=0,
     vt = () if values is None else (values,)
     sp, sv = msd.sort_twiddled_msd(
         planes, vt, begin_bit=begin_bit, end_bit=eb, total_bits=traits.bits,
-        use_pallas=False, plan_kwargs=plan_kwargs,
+        plan_kwargs=plan_kwargs,
     )
     out = td.twiddle_out(sp, traits, descending=descending, dtype=keys.dtype)
     if values is None:
@@ -157,115 +157,16 @@ def test_msd_nonuniform_tail():
         np.testing.assert_array_equal(np.asarray(got), want)
 
 
-@pytest.mark.slow
-def test_msd_pallas_interpret_keys_only():
-    """Keys-only fused fast path (1-operand raw-key network, garbage
-    rewritten to 0xFFFFFFFF, raw-key leaf) — interpret mode on CPU."""
-    n = 23_000
-    keys = datagen.random_keys(jax.random.key(12), n, "uint32")
-    planes, traits = td.twiddle_in(keys)
-    sp, _ = msd.sort_twiddled_msd(
-        planes, (), begin_bit=0, end_bit=32, total_bits=32,
-        use_pallas=True, plan_kwargs=dict(SMALL),
-    )
-    gk = td.twiddle_out(sp, traits, dtype=keys.dtype)
-    want = np_sort_oracle(np.asarray(keys))
-    np.testing.assert_array_equal(np.asarray(gk), want)
 
 
-@pytest.mark.slow
-def test_msd_pallas_interpret_keys_dupes():
-    """Keys-only fast path under heavy duplicates incl. 0xFFFFFFFF ties with
-    garbage slots (the multiset-exactness argument)."""
-    n = 20_000
-    k1 = datagen.entropy_keys(jax.random.key(13), n // 2, 1, "uint32")
-    k2 = jnp.full((n - n // 2,), 0xFFFFFFFF, jnp.uint32)
-    keys = jnp.concatenate([k1, k2])
-    planes, traits = td.twiddle_in(keys)
-    sp, _ = msd.sort_twiddled_msd(
-        planes, (), begin_bit=0, end_bit=32, total_bits=32,
-        use_pallas=True, plan_kwargs=dict(SMALL),
-    )
-    gk = td.twiddle_out(sp, traits, dtype=keys.dtype)
-    want = np_sort_oracle(np.asarray(keys))
-    np.testing.assert_array_equal(np.asarray(gk), want)
 
 
-def test_msd_pallas_no_false_fallback():
-    """Uniform keys must NOT trip the overflow fallback — a silently-firing
-    fallback masks kernel bugs behind correct-but-slow output (regression:
-    the first merge-network attempt miscompiled and hid exactly this way)."""
-    n = 6_000
-    keys = datagen.random_keys(jax.random.key(14), n, "uint32")
-    planes, _ = td.twiddle_in(keys)
-    plan = msd.plan_msd(n, 0, 32, **{k: v for k, v in SMALL.items()
-                                      if k != "min_n"})
-    ops = [jnp.pad(planes[0], (0, plan.m1 - n))]
-    _, _, overflow = msd._run_passes_pallas(ops, 1, n, plan)
-    assert not bool(overflow), "overflow fallback fired on uniform input"
 
 
-@pytest.mark.slow
-def test_msd_pallas_interpret():
-    """The Pallas partition + leaf kernels (interpret mode on CPU) must
-    produce the same exact output as the XLA path."""
-    n = 24_000
-    keys = datagen.random_keys(jax.random.key(11), n, "uint32")
-    vals = datagen.enumerated_values(n)
-    planes, traits = td.twiddle_in(keys)
-    sp, sv = msd.sort_twiddled_msd(
-        planes, (vals,), begin_bit=0, end_bit=32, total_bits=32,
-        use_pallas=True, plan_kwargs=dict(SMALL),
-    )
-    gk = td.twiddle_out(sp, traits, dtype=keys.dtype)
-    wk, wv = np_sort_oracle(np.asarray(keys), np.asarray(vals))
-    np.testing.assert_array_equal(np.asarray(gk), wk)
-    np.testing.assert_array_equal(np.asarray(sv[0]), wv)
 
 
-@pytest.mark.slow
-def test_msd_unstable_pairs_interpret():
-    """Unstable raw-key pairs fast path: keys exact, (key, value) multiset
-    preserved (reference rdxsrt_unstable_sort_pairs semantics)."""
-    n = 22_000
-    keys = datagen.entropy_keys(jax.random.key(15), n, 2, "uint32")
-    vals = datagen.enumerated_values(n)
-    planes, traits = td.twiddle_in(keys)
-    sp, sv = msd.sort_twiddled_msd(
-        planes, (vals,), begin_bit=0, end_bit=32, total_bits=32,
-        use_pallas=True, plan_kwargs=dict(SMALL), stable=False,
-    )
-    gk = np.asarray(td.twiddle_out(sp, traits, dtype=keys.dtype))
-    gv = np.asarray(sv[0])
-    wk = np.sort(np.asarray(keys))
-    np.testing.assert_array_equal(gk, wk)
-    got_pairs = sorted(zip(gk.tolist(), gv.tolist()))
-    want_pairs = sorted(zip(np.asarray(keys).tolist(),
-                            np.asarray(vals).tolist()))
-    assert got_pairs == want_pairs
 
 
-@pytest.mark.slow
-def test_msd_unstable_pairs_sentinel_collision():
-    """Valid 0xFFFFFFFF keys + unstable pairs must take the exact fallback."""
-    n = 20_000
-    keys = jnp.concatenate([
-        datagen.random_keys(jax.random.key(16), n - 100, "uint32"),
-        jnp.full((100,), 0xFFFFFFFF, jnp.uint32),
-    ])
-    vals = datagen.enumerated_values(n)
-    planes, traits = td.twiddle_in(keys)
-    sp, sv = msd.sort_twiddled_msd(
-        planes, (vals,), begin_bit=0, end_bit=32, total_bits=32,
-        use_pallas=True, plan_kwargs=dict(SMALL), stable=False,
-    )
-    gk = np.asarray(td.twiddle_out(sp, traits, dtype=keys.dtype))
-    gv = np.asarray(sv[0])
-    np.testing.assert_array_equal(gk, np.sort(np.asarray(keys)))
-    got_pairs = sorted(zip(gk.tolist(), gv.tolist()))
-    want_pairs = sorted(zip(np.asarray(keys).tolist(),
-                            np.asarray(vals).tolist()))
-    assert got_pairs == want_pairs
 
 
 def test_api_unstable_entry_points():
@@ -281,41 +182,8 @@ def test_api_unstable_entry_points():
     np.testing.assert_array_equal(np.asarray(gk2), np.sort(np.asarray(keys)))
 
 
-@pytest.mark.slow
-def test_msd_raw_u64_planes_interpret():
-    """Two-plane raw fast path (lexicographic (hi, lo) comparator)."""
-    n = 21_000
-    hi = datagen.random_keys(jax.random.key(18), n, "uint32")
-    lo = datagen.random_keys(jax.random.key(19), n, "uint32")
-    sp, _ = msd.sort_twiddled_msd(
-        (hi, lo), (), begin_bit=0, end_bit=64, total_bits=64,
-        use_pallas=True, plan_kwargs=dict(SMALL),
-    )
-    got = (np.asarray(sp[0]).astype(np.uint64) << np.uint64(32)) | \
-        np.asarray(sp[1]).astype(np.uint64)
-    want = np.sort((np.asarray(hi).astype(np.uint64) << np.uint64(32))
-                   | np.asarray(lo).astype(np.uint64))
-    np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.slow
-def test_msd_raw_u64_pairs_unstable_interpret():
-    n = 20_000
-    hi = datagen.entropy_keys(jax.random.key(24), n, 2, "uint32")
-    lo = datagen.entropy_keys(jax.random.key(25), n, 2, "uint32")
-    vals = datagen.enumerated_values(n)
-    sp, sv = msd.sort_twiddled_msd(
-        (hi, lo), (vals,), begin_bit=0, end_bit=64, total_bits=64,
-        use_pallas=True, plan_kwargs=dict(SMALL), stable=False,
-    )
-    gk = (np.asarray(sp[0]).astype(np.uint64) << np.uint64(32)) | \
-        np.asarray(sp[1]).astype(np.uint64)
-    kk = (np.asarray(hi).astype(np.uint64) << np.uint64(32)) | \
-        np.asarray(lo).astype(np.uint64)
-    np.testing.assert_array_equal(gk, np.sort(kk))
-    got_pairs = sorted(zip(gk.tolist(), np.asarray(sv[0]).tolist()))
-    want_pairs = sorted(zip(kk.tolist(), np.asarray(vals).tolist()))
-    assert got_pairs == want_pairs
 
 
 def test_msd_overflow_flag_mode():
@@ -350,70 +218,105 @@ def test_msd_overflow_flag_mode():
     assert bool(ovf_c)
 
 
-def test_skew_tier_pairs_cond_traces():
-    """skew_tier=True with payload operands must keep the lax.cond
-    branches pytree-compatible (regression: the equidepth fallback branch
-    returned key planes only and crashed pairs sorts at trace time)."""
-    rng = np.random.default_rng(11)
-    n = 20_000
-    keys = rng.integers(0, 2**32, n, dtype=np.uint32)
-    vals = np.arange(n, dtype=np.uint32)
-    planes, traits = td.twiddle_in(jnp.asarray(keys))
-    sp, sv = msd.sort_twiddled_msd(
-        planes, (jnp.asarray(vals),), begin_bit=0, end_bit=32,
-        total_bits=32, use_pallas=False, plan_kwargs=dict(SMALL),
-        skew_tier=True, stable=True,
-    )
-    out = td.twiddle_out(sp, traits, descending=False, dtype=keys.dtype)
-    wk, wv = np_sort_oracle(keys, vals)
-    np.testing.assert_array_equal(np.asarray(out), wk)
-    np.testing.assert_array_equal(np.asarray(sv[0]), wv)
+# ---------------------------------------------------------------------------
+# Building blocks of the plain formulation
+# ---------------------------------------------------------------------------
 
 
-@pytest.mark.slow
-def test_msd_pairs_gather_apply_interpret():
-    """Stable pairs with config.pairs_gather_apply: payloads skip the
-    network and are applied by an XLA gather from the sorted position
-    plane — output must be bit-identical to the stable oracle, including
-    under heavy duplicate keys (stability via the unique position
-    tiebreak)."""
-    from tpusort.configs import SortConfig
-
-    cfg = SortConfig(pairs_gather_apply=True)
-    n = 22_000
-    keys = datagen.entropy_keys(jax.random.key(31), n, 2, "uint32")
-    vals = datagen.enumerated_values(n)
-    planes, traits = td.twiddle_in(keys)
-    sp, sv = msd.sort_twiddled_msd(
-        planes, (vals,), begin_bit=0, end_bit=32, total_bits=32,
-        use_pallas=True, plan_kwargs=dict(SMALL), config=cfg,
-    )
-    gk = td.twiddle_out(sp, traits, dtype=keys.dtype)
-    wk, wv = np_sort_oracle(np.asarray(keys), np.asarray(vals))
-    np.testing.assert_array_equal(np.asarray(gk), wk)
-    np.testing.assert_array_equal(np.asarray(sv[0]), wv)
+@pytest.mark.parametrize("shape", [(4, 1024), (3, 2048), (1, 128)])
+def test_sort_tiles_rows_exact(shape):
+    """Each row sorts independently; payload rides with its key."""
+    rng = np.random.default_rng(shape[1])
+    x = rng.integers(0, 2**32, shape, dtype=np.uint64).astype(np.uint32)
+    pay = x ^ np.uint32(0xABCD1234)
+    got_k, got_p = msd._sort_tiles([jnp.asarray(x), jnp.asarray(pay)])
+    np.testing.assert_array_equal(np.asarray(got_k), np.sort(x, axis=1))
+    np.testing.assert_array_equal(np.asarray(got_p),
+                                  np.asarray(got_k) ^ np.uint32(0xABCD1234))
 
 
-@pytest.mark.slow
-def test_msd_u64_pairs_gather_apply_interpret():
-    """Stable 64-bit pairs with config.pairs_gather_apply: composite
-    (hi, lo, position) 3-plane raw sort + payload gather must match the
-    stable oracle bit-for-bit (duplicate-heavy hi plane)."""
-    from tpusort.configs import SortConfig
+@pytest.mark.parametrize("hi_range", [4, 1 << 16])
+def test_two_key_lexicographic_leaf(hi_range):
+    """Wide-remainder leaf: (hi, lo) planes sort lexicographically within
+    each segment, heavy hi-plane ties included."""
+    rng = np.random.default_rng(hi_range)
+    nseg, seg = 4, 256
+    hi = rng.integers(0, hi_range, nseg * seg).astype(np.uint32)
+    lo = rng.integers(0, 2**32, nseg * seg, dtype=np.uint64).astype(np.uint32)
+    plan = msd.MsdPlan(m1=nseg * seg, passes=(), seg=seg, n_segments=nseg,
+                       m_final=nseg * seg, rem_lo=0, rem_width=64)
+    valid = jnp.ones((nseg, seg), bool)
+    (ghi, glo), counts = msd._leaf_sort(
+        [jnp.asarray(hi), jnp.asarray(lo)], slice(0, 2), valid, plan)
+    np.testing.assert_array_equal(np.asarray(counts), np.full(nseg, seg))
+    comp = (hi.astype(np.uint64) << np.uint64(32)) | lo
+    want = np.sort(comp.reshape(nseg, seg), axis=1).reshape(-1)
+    got = (np.asarray(ghi).astype(np.uint64) << np.uint64(32)) | \
+        np.asarray(glo).astype(np.uint64)
+    np.testing.assert_array_equal(got, want)
 
-    cfg = SortConfig(pairs_gather_apply=True)
-    n = 20_000
-    hi = datagen.entropy_keys(jax.random.key(41), n, 3, "uint32")
-    lo = datagen.entropy_keys(jax.random.key(42), n, 2, "uint32")
-    vals = datagen.enumerated_values(n)
-    sp, sv = msd.sort_twiddled_msd(
-        (hi, lo), (vals,), begin_bit=0, end_bit=64, total_bits=64,
-        use_pallas=True, plan_kwargs=dict(SMALL), config=cfg,
-    )
-    gk = (np.asarray(sp[0]).astype(np.uint64) << np.uint64(32)) | \
-        np.asarray(sp[1]).astype(np.uint64)
-    kk = (np.asarray(hi).astype(np.uint64) << np.uint64(32)) | \
-        np.asarray(lo).astype(np.uint64)
-    order = np.argsort(kk, kind="stable")
-    np.testing.assert_array_equal(gk, kk[order])
-    np.testing.assert_array_equal(np.asarray(sv[0]), np.asarray(vals)[order])
+
+@pytest.mark.parametrize("n_short", [0, 333])
+def test_partition_pass_counts_and_runs(n_short):
+    """One pass: counts equal the per-(tile, digit) histogram of the valid
+    prefix, and each emitted run holds that digit's keys in input order
+    (the pass is a stable binning)."""
+    rng = np.random.default_rng(6 + n_short)
+    T, K, R, S = 2, 1024, 8, 256
+    x = rng.integers(0, 2**32, T * K, dtype=np.uint64).astype(np.uint32)
+    n = T * K - n_short
+    spec = msd.PassSpec(n_seg=1, t_seg=T, k=K, r=R, s=S, lo_bit=29, width=3)
+    run_counts = jnp.clip(n - jnp.arange(T, dtype=jnp.int32) * K, 0, K)
+    (out,), counts, overflow = msd._partition_pass(
+        [jnp.asarray(x)], slice(0, 1), run_counts, K, spec)
+    assert not bool(overflow)
+    counts = np.asarray(counts).reshape(R, T)       # digit-major
+    out = np.asarray(out).reshape(R, T, S)
+    for t in range(T):
+        tile = x[t * K: min((t + 1) * K, n)]
+        for d in range(R):
+            want = tile[(tile >> 29) == d]
+            assert counts[d, t] == want.size
+            np.testing.assert_array_equal(out[d, t, : want.size], want)
+
+
+def test_uniform_keys_no_false_overflow():
+    """Uniform keys must NOT trip the overflow flag — a silently-firing
+    fallback masks engine bugs behind correct-but-slow output."""
+    n = 6_000
+    keys = datagen.random_keys(jax.random.key(14), n, "uint32")
+    planes, _ = td.twiddle_in(keys)
+    plan = msd.plan_msd(n, 0, 32, **{k: v for k, v in SMALL.items()
+                                      if k != "min_n"})
+    ops = [jnp.pad(planes[0], (0, plan.m1 - n))]
+    _, _, overflow = msd._run_passes(ops, slice(0, 1), n, plan)
+    assert not bool(overflow), "overflow fallback fired on uniform input"
+
+
+_SEG = 256
+_COUNT_CASES = {
+    "ragged": [_SEG, 0, 117, 1, _SEG - 29],
+    "all_empty_but_one": [0, 0, 0, 40, 0],
+    "all_full": [_SEG] * 5,
+    "leading_empty": [0, _SEG, 3, 0, 200],
+}
+
+
+@pytest.mark.parametrize("n_data", [1, 2])
+@pytest.mark.parametrize("case", sorted(_COUNT_CASES))
+@pytest.mark.parametrize("short", [0, 37])
+def test_compact_segments(case, n_data, short):
+    """Dense concatenation of the valid segment prefixes, for empty, full
+    and ragged segments, and for an output shorter than the count sum."""
+    counts = np.array(_COUNT_CASES[case], np.int32)
+    nseg = counts.size
+    rng = np.random.default_rng(nseg * 31 + short)
+    ops = [rng.integers(0, 2**32, nseg * _SEG, dtype=np.uint64)
+           .astype(np.uint32) for _ in range(n_data)]
+    n_out = max(int(counts.sum()) - short, 1)
+    got = msd.compact_segments([jnp.asarray(o) for o in ops],
+                               jnp.asarray(counts), _SEG, n_out)
+    for o, g in zip(ops, got):
+        o2 = o.reshape(nseg, _SEG)
+        want = np.concatenate([o2[s, :counts[s]] for s in range(nseg)])
+        np.testing.assert_array_equal(np.asarray(g), want[:n_out])

@@ -40,9 +40,8 @@ def _assert_bitwise_equal(got, want, msg=""):
         raise AssertionError(f"{msg} first byte mismatch at {bad[:10]}")
 
 
-# Engines with exact sorted-keys output (bitonic/msd_unstable reorder only
-# equal-key payloads; msd_equidepth is keys-only and exercised separately —
-# its CPU path runs Pallas in interpret mode, too slow for the full matrix).
+# Engines with exact sorted-keys output (bitonic/msd_unstable may reorder
+# equal-key payloads).
 KEYS_ALGORITHMS = ["reference", "msd", "msd_unstable", "bitonic"]
 # Engines with stable (position-preserving) pair semantics.
 STABLE_ALGORITHMS = ["reference", "msd"]
@@ -324,19 +323,18 @@ def test_legacy_engine_signature_still_works():
 
 class Test64BitHostBoundary:
     """Public ``sort()`` accepts 64-bit dtypes via the host plane boundary
-    (the backend cannot materialize 64-bit arrays): keys/values are bitcast
-    to uint32 planes host-side, sorted through the plane interface, and
-    reassembled as numpy.  Covers the reference's full ``Traits`` dtype set
+    (with ``jax_enable_x64`` off JAX holds no 64-bit arrays): keys/values
+    are bitcast to uint32 planes host-side, sorted through the plane
+    interface, and reassembled as numpy.  Covers the reference's full ``Traits`` dtype set
     (``lsb/cub/cub/util_type.cuh:1104-1130``) and its {4,8}-byte
     key x value tuning matrix (``msb/src/sort/gpu_sort_config.h:146-207``)
     at the top-level API."""
 
     @pytest.fixture(autouse=True)
     def _x64_off(self):
-        # the production TPU environment runs with x64 DISABLED (the
-        # backend cannot hold 64-bit arrays) — that is the configuration
-        # the host boundary exists for; the rest of the suite keeps
-        # conftest's x64 to exercise the device-side plane decomposition
+        # JAX's default is x64 DISABLED — the configuration the host
+        # boundary exists for; the rest of the suite keeps conftest's x64
+        # to exercise the device-side plane decomposition
         old = jax.config.jax_enable_x64
         jax.config.update("jax_enable_x64", False)
         yield

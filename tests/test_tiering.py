@@ -1,10 +1,9 @@
-"""Host-owned tiering: radix flag-mode -> equi-depth -> exact.
+"""Host-owned tiering: radix flag-mode -> exact.
 
-The TPU analog of the reference's CPU-in-the-loop pass planner
+The analog of the reference's CPU-in-the-loop pass planner
 (``msb/src/sort/gpu_radix_sort.cu:29-104``): the host reads a tiny overflow
-flag and re-dispatches, so no in-graph fallback workspace is ever reserved
-(what capped the in-graph engine at 2^29 keys and gated the skew tier to
-n < 2^28 in round 1)."""
+flag and re-dispatches, so no in-graph fallback workspace is reserved where
+it would not fit the device."""
 
 import jax
 import jax.numpy as jnp
@@ -86,23 +85,31 @@ def test_sort_inside_jit_uses_in_graph_fallback():
     np.testing.assert_array_equal(got, np_sort_oracle(np.asarray(keys)))
 
 
-@pytest.mark.slow
-def test_tier_equidepth_engaged():
-    """With skew_tier=True the equi-depth tier runs between radix and
-    exact (interpret mode on CPU — slow).  Zipfian input overflows radix
-    but fits equi-depth; output must be oracle-exact either way."""
+
+
+
+def test_doomed_sample_skips_to_exact(monkeypatch):
+    """A sample that predicts radix overflow (Zipf duplication) sends the
+    call straight to the exact tier: one dispatch, no doomed radix run."""
+    from tpusort import api, planner
+
+    monkeypatch.setattr(planner, "PLANNER_MIN_N", 1 << 10)
+    api._TIER_CACHE.clear()
+    tiers = []
+    orig = api._sort_tier_impl
+
+    def spy(*a, **k):
+        tiers.append(k["tier"])
+        return orig(*a, **k)
+
+    monkeypatch.setattr(api, "_sort_tier_impl", spy)
     n = 20_000
-    cfg = SortConfig(tile_elems=1024, radix=8, s1=256, min_n=4096,
-                     skew_tier=True, skew_sample_log2=13)
     keys = datagen.zipf_keys(jax.random.key(6), n, alpha=1.2,
                              dtype=jnp.uint32)
-
-    def run():
-        return np.asarray(tpusort.sort(keys, algorithm="msd", stable=False))
-
-    got = _with_cfg(cfg, run)
+    got = _with_cfg(CPU_CFG,
+                    lambda: np.asarray(tpusort.sort(keys, algorithm="msd")))
     np.testing.assert_array_equal(got, np_sort_oracle(np.asarray(keys)))
-
+    assert tiers == ["exact"], tiers
 
 class TestPresortedShortCircuit:
     """Already-sorted identity short-circuit (the reference's finished

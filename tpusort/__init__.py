@@ -1,4 +1,4 @@
-"""tpusort — a TPU-native vectorized sort engine (JAX/XLA/Pallas).
+"""tpusort — a vectorized sort engine in JAX, run on NVIDIA GPUs.
 
 Built from scratch with the capabilities of the CUDA reference
 ``anilshanbhag/gpu-sort``: stable LSD radix sort, bandwidth-efficient hybrid

@@ -1,6 +1,6 @@
 """Tuning-configuration system.
 
-TPU-native analog of the reference's two config layers:
+Analog of the reference's two config layers:
 
 * CUB's per-SM chained tuning policies — digit width / items-per-thread
   tables selected by hardware generation
@@ -9,18 +9,17 @@ TPU-native analog of the reference's two config layers:
   TPB/KPT tables plus runtime local-sort kernel registries
   (``msb/src/sort/gpu_sort_config.h:146-336``).
 
-Here the tunables are the knobs that actually steer the TPU engines: the
-MSD planner geometry (tile size K, radix R, pass-1 padded capacity S1,
-leaf segment bound), the delegation thresholds, and the skew-tier sample
-size.  Configs are keyed by (key_bits, has_values, platform); every field
-is consumed — ``SortConfig.plan_kwargs()`` feeds ``ops.msd.plan_msd``
-directly, so changing a registered config changes the compiled pass plan
-(pinned by ``tests/test_configs.py``).
+Here the tunables are the engine choice for ``algorithm="auto"``, the MSD
+planner geometry (tile size K, radix R, pass-1 padded capacity S1, leaf
+segment bound) and the delegation thresholds.  Configs are keyed by
+(key_bits, has_values, platform); ``SortConfig.plan_kwargs()`` feeds
+``ops.msd.plan_msd`` directly, so changing a registered config changes the
+compiled pass plan (pinned by ``tests/test_configs.py``).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 __all__ = ["SortConfig", "get_config", "register_config"]
@@ -30,27 +29,14 @@ __all__ = ["SortConfig", "get_config", "register_config"]
 class SortConfig:
     # --- MSD/LSD engine plan geometry (ops.msd.plan_msd kwargs; the
     #     TPB/KPT analog) ---
-    tile_elems: int = 1 << 14      # K: elements per VMEM tile
+    tile_elems: int = 1 << 14      # K: elements per tile
     radix: int = 32                # R: runs per tile (digit fan-out)
     s1: Optional[int] = None       # pass-1 padded run capacity (None = auto)
     leaf_max: Optional[int] = None # max final segment size (None = auto)
     min_n: int = 1 << 16           # below this the engine delegates
-    # --- small-problem fast path (analog of CUB InvokeSingleTile,
+    # --- small-problem engine bound (analog of CUB InvokeSingleTile,
     #     dispatch_radix_sort.cuh:834-875) ---
     small_n_threshold: int = 1 << 14
-    # --- adaptive skew tier (equi-depth splitter engine) ---
-    skew_tier: Optional[bool] = None      # None = engine's auto gate
-    skew_sample_log2: Optional[int] = None  # splitter sample size (None = auto)
-    # tiles per partition-pass grid step (None = kernel default 4; big
-    # tiles run best unbatched — see DESIGN.md round-3 geometry findings)
-    pass_batch: Optional[int] = None
-    # stable pairs: apply payloads with one XLA gather per payload from
-    # the sorted position plane instead of riding the network.  REFUTED
-    # on chip (r5, benchmarks/pairs_probe.py @ 2^26): the whole-array
-    # gather runs 69 M elem/s (no coalescing for data-dependent
-    # addresses on TPU), making gather-apply 58 M pairs/s vs 276 M for
-    # the riding composite — pinned False; kept as the A/B knob
-    pairs_gather_apply: bool = False
     # --- algorithm auto-selection ---
     default_algorithm: str = "xla"
 
@@ -87,32 +73,16 @@ def get_config(
     return SortConfig()
 
 
-# Defaults, measured on v5e (DESIGN.md round-3 sweeps + the on-chip
-# geometry A/B, benchmarks/results/roundthree_geo.log).  Keys-only won by
-# the big-tile low-alpha row: K=65536/R=32, s1=2560 (alpha=1.25, one fewer
-# pass at 2^28: 872 vs 817 M keys/s for K=16384/batch=8), batch 2 (871.8
-# vs 830.1 at batch 1).  Multi-operand shapes (pairs, u64) carry 2-4
-# network operands, so the VMEM budget halves the batch (their rows are
-# re-measured per shape below).  CPU (test) configs use small tiles and a
+# GPU: ``auto`` is XLA's own sort, which XLA hands to CUB's radix sort
+# where the operand shape allows.  No engine here has yet beaten it on the
+# card, so the MSD geometry fields keep their defaults (used only when a
+# caller names algorithm="msd").  CPU (test) configs use small tiles and a
 # low min_n so the full pass pipelines execute at CI problem sizes through
 # the public API.
-register_config(32, False, "tpu", SortConfig(default_algorithm="msd",
-                                             tile_elems=1 << 16, s1=2560,
-                                             leaf_max=327680, pass_batch=2))
-register_config(32, True, "tpu", SortConfig(default_algorithm="msd",
-                                            tile_elems=1 << 16, s1=2560,
-                                            leaf_max=327680, pass_batch=1))
-# u64: big-tile geometry measured r4 — 321 M keys/s at 2^28 (the 2^28
-# compile previously died on the staged-leaf scoped-vmem OOM), 348 vs
-# 326 M at 2^26 over the old default
-register_config(64, False, "tpu", SortConfig(default_algorithm="msd",
-                                             tile_elems=1 << 16, s1=2560,
-                                             leaf_max=327680, pass_batch=1))
-register_config(64, True, "tpu", SortConfig(default_algorithm="msd",
-                                            tile_elems=1 << 16, s1=2560,
-                                            leaf_max=327680, pass_batch=1))
+_GPU = SortConfig(default_algorithm="xla")
 _CPU = SortConfig(tile_elems=2048, radix=16, s1=256, min_n=4096,
                   small_n_threshold=2048)
 for _bits in (32, 64):
     for _hv in (False, True):
+        register_config(_bits, _hv, "gpu", _GPU)
         register_config(_bits, _hv, "cpu", _CPU)

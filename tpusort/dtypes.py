@@ -1,6 +1,6 @@
 """Order-preserving key <-> unsigned-bits mappings ("twiddling").
 
-TPU-native re-design of the key-traits layer of the CUDA reference
+Re-design of the key-traits layer of the CUDA reference
 (``lsb/cub/cub/util_type.cuh:966-1130`` — ``Traits<T>::TwiddleIn/TwiddleOut``):
 a radix sort operates on unsigned bit patterns, so every supported key dtype
 is mapped through an order-preserving bijection onto unsigned integers:
@@ -15,11 +15,11 @@ of CUB's ``IS_DESCENDING`` template parameter,
 ``dispatch_radix_sort.cuh:746-760``), which keeps every downstream kernel
 order-agnostic.
 
-64-bit keys are handled TPU-natively: TPU vector units are 32-bit, and JAX
-disables 64-bit types by default, so 64-bit keys are decomposed into
-(hi, lo) uint32 planes immediately on entry and every kernel operates on
-32-bit lanes only.  This is a deliberate architectural departure from the
-CUDA reference (which sorts 64-bit registers directly).
+64-bit keys are decomposed into (hi, lo) uint32 planes immediately on
+entry, and every engine sorts 32-bit operands only.  JAX disables 64-bit
+types by default (``jax_enable_x64`` off), and the planes let the same
+engines serve every key width.  This is a departure from the CUDA
+reference, which sorts 64-bit registers directly.
 """
 
 from __future__ import annotations
@@ -120,7 +120,7 @@ def _twiddle32_out(t: jax.Array, traits: KeyTraits) -> jax.Array:
 
 
 # ---------------------------------------------------------------------------
-# 64-bit keys as (hi, lo) uint32 planes — TPU-native decomposition
+# 64-bit keys as (hi, lo) uint32 planes
 # ---------------------------------------------------------------------------
 
 
@@ -147,8 +147,8 @@ def split64_host(keys) -> Tuple["np.ndarray", "np.ndarray"]:
     """HOST-side (hi, lo) uint32 planes from any 64-bit array-like.
 
     Unlike :func:`split64` this never touches jax (no ``jax_enable_x64``
-    needed): it is the public-API boundary for backends that cannot
-    materialize 64-bit arrays at all (TPU).  The bitcast view covers every
+    needed): it is the public-API boundary when x64 is off and JAX holds
+    no 64-bit arrays.  The bitcast view covers every
     64-bit key dtype of the reference's ``Traits``
     (``lsb/cub/cub/util_type.cuh:1104-1130``)."""
     import numpy as np
@@ -181,7 +181,7 @@ def twiddle_planes_in(
     descending: bool = False,
 ) -> Tuple[jax.Array, ...]:
     """Twiddle raw uint32 bit-pattern plane(s) of a key (plane 0 = most
-    significant word) into sortable-unsigned planes.  This is the TPU-native
+    significant word) into sortable-unsigned planes.  This is the plane
     64-bit entry: 64-bit keys never exist as 64-bit arrays, only as
     (hi, lo) uint32 planes."""
     if traits.planes == 1:

@@ -3,10 +3,9 @@
 digit-histogram primitive the radix engines use (the analog of
 ``rdxsrt_histogram``, ``msb/src/sort/cuda_radix_sort.h:666-802``).
 
-TPU realization: one-hot compare + sum (vectorized, atomic-free) — the
-direct replacement for the reference's shared-memory atomics + RLE
-pre-sorting tricks, which exist only because GPUs histogram through
-atomics.
+Realization: one-hot compare + sum (vectorized, atomic-free), left to
+XLA, in place of the reference's shared-memory atomics + RLE pre-sorting
+tricks.
 """
 
 from __future__ import annotations
@@ -73,32 +72,15 @@ def histogram_even(
 
 def digit_histogram(
     keys_u32: jax.Array, shift: int, bits: int, *, tiles: int = 1,
-    dtype=jnp.int32, use_pallas=None,
+    dtype=jnp.int32,
 ) -> jax.Array:
     """Per-tile counts of the ``bits``-wide digit at ``shift``.
 
     keys_u32: (N,) twiddled keys with N divisible by tiles; returns
-    (tiles, 2**bits).  The global (tiles == 1) form routes through the
-    Pallas accumulator kernel (``kernels/scanhist.digit_histogram_tiles``)
-    when the geometry fits; per-tile forms stay on the XLA one-hot path.
+    (tiles, 2**bits).
     """
     r = 1 << bits
     keys_u32 = jnp.asarray(keys_u32)
-    n = keys_u32.shape[0]
-    route = (
-        tiles == 1
-        and bits <= 8
-        and n % (512 * 128) == 0
-        and dtype == jnp.int32
-    )
-    if use_pallas is not None:
-        route = route and use_pallas
-    else:
-        route = route and jax.default_backend() == "tpu"
-    if route:
-        from tpusort.kernels.scanhist import digit_histogram_tiles
-
-        return digit_histogram_tiles(keys_u32, shift, bits)[None, :]
     d = (keys_u32.reshape(tiles, -1) >> jnp.uint32(shift)) & jnp.uint32(r - 1)
     oh = d[:, :, None] == jnp.arange(r, dtype=jnp.uint32)
     return oh.sum(axis=1, dtype=dtype)

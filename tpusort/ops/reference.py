@@ -3,7 +3,7 @@
 This is the analog of the CUDA reference's use of CUB ``DeviceRadixSort`` as
 the trusted oracle in its tests (``msb/tests/test_sort_keys.cu:14-45``): a
 slow-but-certain implementation every fast engine is checked against.  It is
-built on XLA's stable variadic sort, so it runs on CPU and TPU alike.
+built on XLA's stable variadic sort, so it runs on CPU and GPU alike.
 
 Semantics implemented (mirroring ``cub::DeviceRadixSort``,
 ``lsb/cub/cub/device/device_radix_sort.cuh:147-660``):

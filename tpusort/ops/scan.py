@@ -1,15 +1,9 @@
 """Prefix-scan ops (the DeviceScan subset of the reference's kernel library,
 ``lsb/cub/cub/device/device_scan.cuh`` — SURVEY.md L-10, scoped to what the
-query-execution seed needs).
-
-1-D sums route through the Pallas sequential-grid carry kernel
-(``kernels/scanhist.py`` — the TPU-native replacement for CUB's
-decoupled-lookback protocol); other axes/ops lower to XLA's scans.
+query-execution seed needs), lowered to XLA's scans.
 """
 
 from __future__ import annotations
-
-from typing import Optional
 
 import jax
 import jax.numpy as jnp
@@ -17,44 +11,13 @@ import jax.numpy as jnp
 __all__ = ["inclusive_sum", "exclusive_sum", "inclusive_scan",
            "exclusive_scan", "segmented_sum"]
 
-_PALLAS_DTYPES = (jnp.int32, jnp.uint32, jnp.float32)
-_PALLAS_MIN_N = 1 << 16
+
+def inclusive_sum(x: jax.Array, axis: int = -1) -> jax.Array:
+    return jnp.cumsum(jnp.asarray(x), axis=axis)
 
 
-def _pallas_route(x: jax.Array, axis: int, use_pallas: Optional[bool]):
-    ok = (
-        x.ndim == 1
-        and axis in (-1, 0)
-        and x.dtype in [jnp.dtype(d) for d in _PALLAS_DTYPES]
-    )
-    if use_pallas is not None:
-        return ok and use_pallas
-    return (
-        ok
-        and x.shape[0] >= _PALLAS_MIN_N
-        and jax.default_backend() == "tpu"
-    )
-
-
-def inclusive_sum(
-    x: jax.Array, axis: int = -1, *, use_pallas: Optional[bool] = None
-) -> jax.Array:
+def exclusive_sum(x: jax.Array, axis: int = -1) -> jax.Array:
     x = jnp.asarray(x)
-    if _pallas_route(x, axis, use_pallas):
-        from tpusort.kernels.scanhist import prefix_sum_tiles
-
-        return prefix_sum_tiles(x)
-    return jnp.cumsum(x, axis=axis)
-
-
-def exclusive_sum(
-    x: jax.Array, axis: int = -1, *, use_pallas: Optional[bool] = None
-) -> jax.Array:
-    x = jnp.asarray(x)
-    if _pallas_route(x, axis, use_pallas):
-        from tpusort.kernels.scanhist import prefix_sum_tiles
-
-        return prefix_sum_tiles(x, exclusive=True)
     return jnp.cumsum(x, axis=axis) - x
 
 
@@ -72,7 +35,7 @@ def exclusive_scan(x: jax.Array, op, identity, axis: int = -1) -> jax.Array:
 
 
 def segmented_sum(x: jax.Array, segment_ids: jax.Array, num_segments: int):
-    """Per-segment sums via one-hot matmul (gather/scatter-free on TPU)."""
+    """Per-segment sums via a one-hot reduction (no scatter)."""
     oh = (
         segment_ids[:, None] == jnp.arange(num_segments, dtype=segment_ids.dtype)
     ).astype(x.dtype)

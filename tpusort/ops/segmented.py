@@ -1,17 +1,11 @@
 """Segmented (batched) sort — the ``DeviceSegmentedRadixSort`` analog
 (``lsb/cub/cub/device/device_segmented_radix_sort.cuh``, SURVEY.md L-2/L-10).
 
-Two paths:
+Two paths, both one ``lax.sort``:
 
-* **uniform segments** (shape (B, K), K a multiple of 128 and <= 16K): the
-  Pallas bitonic tile kernel sorts every segment in VMEM in one grid pass —
-  the TPU's natural batched-sort shape;
+* **uniform segments** (shape (B, K)): a batched sort along the rows;
 * **ragged segments** (offsets array): a composite sort by
-  (segment_id, key) — on TPU through the raw-key plane engine (the
-  segment id rides as the most-significant plane, so the whole ragged
-  batch is ONE engine invocation: pass-0 digits come from the segment id
-  and later passes/leaves finish each segment in place); elsewhere, the
-  variadic XLA sort.
+  (segment_id, key).
 
 Bit-range sub-sorts (``begin_bit``/``end_bit`` — the CUB parameters every
 ``DeviceSegmentedRadixSort`` entry point carries) compare only the masked
@@ -29,8 +23,6 @@ import jax.numpy as jnp
 from tpusort import dtypes as _dtypes
 
 __all__ = ["segmented_sort", "sort_batched"]
-
-_MAX_TILE = 1 << 14
 
 
 def _masked_planes(planes, traits, begin_bit: int, end_bit: Optional[int]):
@@ -66,28 +58,7 @@ def sort_batched(
     cmp_planes, full_range = _masked_planes(planes, traits, begin_bit,
                                             end_bit)
 
-    use_pallas = (
-        jax.default_backend() == "tpu"
-        and traits.planes == 1
-        and full_range
-        and not stable
-        and k % 128 == 0
-        and k <= _MAX_TILE
-        and all(jnp.dtype(v.dtype).itemsize == 4 for v in vt)
-        # non-pow2 K pads tiles with the 0xFFFFFFFF sentinel; a real pair
-        # whose twiddled key ties the sentinel could then lose its payload
-        # to a pad slot (keys-only is multiset-exact either way) — same
-        # hazard ops/small.py guards with its (pad and values) delegation
-        and (not vt or (k & (k - 1)) == 0)
-    )
-    if use_pallas:
-        from tpusort.kernels.bitonic import sort_tiles
-
-        ops = [planes[0].reshape(b, k)] + vops
-        out = sort_tiles(ops)
-        sorted_planes = (out[0].reshape(-1),)
-        sorted_vals = [o for o in out[1:]]
-    elif full_range:
+    if full_range:
         key_ops = [p.reshape(b, k) for p in planes]
         res = jax.lax.sort(key_ops + vops, dimension=1,
                            num_keys=len(key_ops), is_stable=stable)
@@ -140,8 +111,7 @@ def segmented_sort(
 
     ``begin_bit``/``end_bit`` compare only that key-bit window (parity
     with every ``DeviceSegmentedRadixSort`` entry point); ``stable=False``
-    permits reordering of equal-key payloads, unlocking the raw-plane
-    engine fast path for pairs.
+    permits reordering of equal-key payloads.
     """
     n = keys.shape[0]
     if not isinstance(segment_offsets, jax.core.Tracer):
@@ -165,60 +135,6 @@ def segmented_sort(
         jnp.searchsorted(segment_offsets.astype(jnp.int32), pos, side="right")
         - 1
     ).astype(jnp.uint32)
-
-    nseg = int(segment_offsets.shape[0]) - 1
-    # raw-plane engine fast paths: the segment id, shifted to the top
-    # bits, rides as the most-significant key plane (spreading the MSD
-    # digits across segments — a raw seg_id would put everything in digit
-    # 0 and trip the overflow fallback), so one engine invocation sorts
-    # the whole ragged batch.  Stability comes from a position plane when
-    # needed; keys-only stability is vacuous.
-    shift = 32 - max((nseg - 1).bit_length(), 1)
-    use_engine = (
-        jax.default_backend() == "tpu"
-        and traits.planes == 1
-        and full_range
-        and nseg >= 1
-    )
-    if use_engine and not vt:
-        from tpusort.ops.msd import sort_twiddled_msd
-
-        sp, _ = sort_twiddled_msd(
-            (seg_id << jnp.uint32(shift), planes[0]), (),
-            begin_bit=0, end_bit=64, total_bits=64,
-        )
-        sorted_planes = (sp[1],)
-        out_keys = _dtypes.twiddle_out(
-            sorted_planes, traits, descending=descending, dtype=keys.dtype
-        )
-        return out_keys
-    if use_engine and vt and all(
-        jnp.dtype(jnp.asarray(v).dtype).itemsize == 4 for v in vt
-    ):
-        from tpusort.ops.msd import sort_twiddled_msd
-
-        if stable:
-            # composite (seg_id, key, position): the unique position
-            # plane makes the unstable 3-plane raw path stable-by-key
-            # (same trick as the stable-pairs composite, ops/msd.py)
-            comp = (seg_id << jnp.uint32(shift), planes[0],
-                    jnp.arange(n, dtype=jnp.uint32))
-            total = 96
-        else:
-            comp = (seg_id << jnp.uint32(shift), planes[0])
-            total = 64
-        sp, sv = sort_twiddled_msd(
-            comp, tuple(jnp.asarray(v) for v in vt),
-            begin_bit=0, end_bit=total, total_bits=total, stable=False,
-        )
-        out_keys = _dtypes.twiddle_out(
-            (sp[1],), traits, descending=descending, dtype=keys.dtype
-        )
-        outs = tuple(
-            jnp.asarray(o).view(jnp.asarray(v).dtype)
-            for o, v in zip(sv, vt)
-        )
-        return out_keys, (outs[0] if single else outs)
 
     if full_range:
         operands = [seg_id] + list(planes) + [jnp.asarray(v) for v in vt]

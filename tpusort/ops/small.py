@@ -1,16 +1,15 @@
-"""Small-array fast path: single-tile bitonic sort.
+"""Small-array engine ("bitonic"): one unstable sort, no passes.
 
 Analog of CUB's single-tile dispatch (``DeviceRadixSortSingleTileKernel`` /
 ``InvokeSingleTile``, ``dispatch_radix_sort.cuh:209,834-875``: one block
 sorts everything) and the surfacing of the reference's sorting networks
-(``msb/src/sort/sorting_network.cuh``) as a standalone capability: the whole
-problem fits one VMEM tile, so one Pallas bitonic network finishes it with
-no passes, histograms, or exchanges.
+(``msb/src/sort/sorting_network.cuh``) as a standalone capability: a
+problem of at most ``config.small_n_threshold`` keys is finished by one
+unstable ``lax.sort``, with no passes, histograms or exchanges.
 
-Unstable (the network has no position tiebreak at this level); exact for
-keys, permutation-equivalent for pairs.  The engine delegates to the stable
-reference path whenever its constraints don't hold (multi-plane keys,
-bit-range subsorts, non-32-bit payloads, pairs needing key-space padding).
+Unstable (no position tiebreak); exact for keys, permutation-equivalent
+for pairs.  The engine delegates to the stable reference path for larger
+problems and for bit-range subsorts.
 """
 
 from __future__ import annotations
@@ -18,8 +17,6 @@ from __future__ import annotations
 from typing import Sequence, Tuple
 
 import jax
-import numpy as np
-import jax.numpy as jnp
 
 from tpusort.ops.reference import sort_twiddled_reference
 
@@ -36,35 +33,15 @@ def sort_twiddled_bitonic(
     config=None,
 ):
     n = planes[0].shape[0]
-    pad = (-n) % 128
     tile_max = min(
         config.small_n_threshold if config is not None else _MAX_SINGLE_TILE,
         _MAX_SINGLE_TILE,
     )
-    delegate = (
-        len(planes) != 1
-        or begin_bit != 0
-        or end_bit != total_bits
-        or n + pad > tile_max
-        or any(jnp.dtype(v.dtype).itemsize != 4 for v in values)
-        or (pad and values)  # pad sentinels tie with genuine max-key pairs
-    )
-    if delegate:
+    if begin_bit != 0 or end_bit != total_bits or n > tile_max:
         return sort_twiddled_reference(
             planes, values, begin_bit=begin_bit, end_bit=end_bit,
             total_bits=total_bits,
         )
-
-    from tpusort.kernels.bitonic import sort_tiles
-
-    key = jnp.pad(planes[0], (0, pad), constant_values=np.uint32(0xFFFFFFFF))
-    ops = [key[None, :]] + [
-        jnp.pad(jnp.asarray(v).view(jnp.uint32), (0, pad))[None, :]
-        for v in values
-    ]
-    out = sort_tiles(ops)
-    sorted_planes = (out[0][0, :n],)
-    sorted_values = tuple(
-        o[0, :n].view(jnp.asarray(v).dtype) for o, v in zip(out[1:], values)
-    )
-    return sorted_planes, sorted_values
+    out = jax.lax.sort(list(planes) + list(values), num_keys=len(planes),
+                       is_stable=False)
+    return tuple(out[:len(planes)]), tuple(out[len(planes):])

@@ -1,13 +1,13 @@
 """Host-side tier pre-classifier.
 
-The TPU analog of the reference's CPU-in-the-loop block planner
+The analog of the reference's CPU-in-the-loop block planner
 (``msb/src/sort/gpu_radix_sort.cu:29-104``): a tiny strided sample of the
 twiddled keys is pulled to the host, and cheap numpy statistics predict
 whether the radix engine's static per-run capacities would overflow.  The
 host tier chain (``tpusort.api``) then skips the doomed radix run and
-dispatches the equi-depth skew tier directly — mispredictions are safe in
-both directions (the flag-mode overflow check still guards correctness;
-a false skip only costs the radix pipeline's higher throughput).
+dispatches the exact tier directly — mispredictions are safe in both
+directions (the flag-mode overflow check still guards correctness; a
+false skip only costs the radix pipeline's throughput).
 
 Two signals, matched to the two ways static capacities die:
 

@@ -1,6 +1,6 @@
 """Test/benchmark data generators.
 
-TPU-native analog of the reference's device-side generators
+Analog of the reference's device-side generators
 (``msb/tests/data_gen.h:34-85``):
 
 * uniform random keys (cuRAND there; ``jax.random`` bits here),

@@ -7,9 +7,9 @@ points, per-pass metric arrays (``:666-727`` — used as
 histo/pfx_sum/scatter/local_sort[pass] in ``gpu_radix_sort.h:266-269``),
 and table/CSV writers with min/max/avg summaries (``:364-605``).
 
-The CUDA-event machinery maps to :mod:`tpusort.utils.timing` (probe-sync
-measurement); lazily-resolved event pairs are unnecessary since measurement
-is synchronous here.
+The CUDA-event machinery maps to :mod:`tpusort.utils.timing`
+(``block_until_ready`` around each call); lazily-resolved event pairs are
+unnecessary since measurement is synchronous here.
 """
 
 from __future__ import annotations
@@ -152,7 +152,8 @@ def _summaries(p: Profile, cols: List[str]) -> List[List[str]]:
 def profile_msd_phases(n: int, *, dtype="uint32", pairs: bool = False,
                        seed: int = 0, fused_total: bool = True) -> Profile:
     """Time each MSD engine phase separately on the current backend:
-    histogram, partition kernel, exchange transpose per pass; leaf; collapse.
+    each partition pass (histogram, tile sort, padded emit, exchange
+    transpose); leaf; compaction (``collapse_ms``).
 
     The jit-fused production path is faster than the sum of these (no
     intermediate materialization), so treat them as an upper bound per
@@ -173,7 +174,6 @@ def profile_msd_phases(n: int, *, dtype="uint32", pairs: bool = False,
     if plan is None:
         raise ValueError(f"no msd plan for n={n}")
 
-    use_pallas = jax.default_backend() == "tpu"
     with prof.run(n=n, dtype=dtype, pairs=pairs,
                   passes=len(plan.passes), seg=plan.seg) as r:
         ops = [jnp.pad(p, (0, plan.m1 - n)) for p in planes]
@@ -186,7 +186,7 @@ def profile_msd_phases(n: int, *, dtype="uint32", pairs: bool = False,
         s_prev = k0
         for i, spec in enumerate(plan.passes):
             fn = jax.jit(lambda o, rc, sp=spec, s_p=s_prev: msd._partition_pass(
-                list(o), slice(0, traits.planes), rc, s_p, sp, use_pallas))
+                list(o), slice(0, traits.planes), rc, s_p, sp))
             dt = timing.measure(fn, tuple(ops), run_counts)
             r.push("partition_ms", dt * 1e3)
             ops, run_counts, _ = fn(tuple(ops), run_counts)
@@ -195,24 +195,17 @@ def profile_msd_phases(n: int, *, dtype="uint32", pairs: bool = False,
         leaf = jax.jit(lambda o, rc: msd._leaf_sort(
             list(o), slice(0, traits.planes),
             msd._valid_mask(rc, s_prev, plan.n_segments, plan.seg),
-            plan, use_pallas))
+            plan))
         dt = timing.measure(leaf, tuple(ops), run_counts)
         r.set_metric("leaf_ms", dt * 1e3)
         ops, seg_counts = leaf(tuple(ops), run_counts)
-        if use_pallas:
-            from tpusort.kernels.collapse import collapse_segments
-
-            coll = jax.jit(lambda o, sc: collapse_segments(
-                [x.reshape(plan.n_segments, plan.seg) for x in o], sc, n))
-        else:
-            coll = jax.jit(lambda o, sc: msd._compact_xla(
-                list(o), sc, plan.seg, n))
+        coll = jax.jit(lambda o, sc: msd.compact_segments(
+            list(o), sc, plan.seg, n))
         dt = timing.measure(coll, tuple(ops), seg_counts)
         r.set_metric("collapse_ms", dt * 1e3)
         if fused_total:
             # end-to-end production path for the per-phase upper-bound
-            # comparison; skippable on CPU where the interpret-mode engine
-            # at profiling sizes is impractically slow
+            # comparison (skippable where only the phases matter)
             total = jax.jit(
                 lambda k: __import__("tpusort").sort(k, algorithm="msd"))
             dt = timing.measure(total, keys)
